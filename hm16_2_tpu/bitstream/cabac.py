@@ -7,7 +7,7 @@ Bit-exact re-implementation of the HEVC arithmetic coder (spec 9.3.4.3):
 
 This Python implementation is the reference/verification path; the production
 hot loop lives in the C++ native module (hm16_2_tpu/native) driven by
-pre-binarized syntax tensors produced on TPU.
+pre-binarized syntax tensors produced on the accelerator.
 """
 
 from __future__ import annotations

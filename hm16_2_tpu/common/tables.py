@@ -1,6 +1,6 @@
 """Normative HEVC constant tables (ITU-T H.265 / ISO-IEC 23008-2).
 
-TPU-native re-derivation of the reference ROM (HM-16.2 `TLibCommon/TComRom.{h,cpp}`).
+Accelerator-native re-derivation of the reference ROM (HM-16.2 `TLibCommon/TComRom.{h,cpp}`).
 Wherever the standard defines tables by a generative rule (transform matrices,
 scan orders, Z-order maps) we *generate* them here instead of transcribing; the
 hand-tuned seed values (half-cosine coefficient lists, filter taps, QP maps) are

@@ -1,7 +1,7 @@
 """In-loop filters: deblocking + SAO application (decode side).
 
 Deblocking dual: HM TComLoopFilter.cpp:130-923; SAO apply dual:
-TComSampleAdaptiveOffset.cpp:309-630.  The batched TPU implementations live
+TComSampleAdaptiveOffset.cpp:309-630.  The batched accelerator implementations live
 in hm16_2_tpu.ops.deblock / hm16_2_tpu.ops.sao; this module orchestrates
 them over a decoded PictureState.
 """

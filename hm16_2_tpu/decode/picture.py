@@ -1,11 +1,11 @@
 """Picture-level decode state.
 
-TPU-first data model: instead of HM's per-CTU TComDataCU objects with
+Accelerator-first data model: instead of HM's per-CTU TComDataCU objects with
 neighbor pointers (TComDataCU.h:86-141), all per-4x4-part syntax state lives
 in dense picture-wide numpy arrays indexed [part_y, part_x].  Neighbor
 queries become array reads; availability (spec 6.4.1) is a pure function of
 z-scan coding order, slice id and tile id.  This layout is exactly what the
-batched TPU reconstruction kernels consume.
+batched accelerator reconstruction kernels consume.
 """
 
 from __future__ import annotations

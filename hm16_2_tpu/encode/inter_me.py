@@ -51,7 +51,7 @@ def me_frame(cur, refs, mvp8, lam, row0=0, *, h: int, w: int,
 
     cur:  (h, w) int32 current luma (a row band when row0 > 0)
     refs: (R, full_h, w) int32 reference lumas (always the FULL planes —
-          the sharded caller all-gathers them over ICI, SURVEY.md §5's
+          the sharded caller all-gathers them over the mesh, SURVEY.md §5's
           reference-window exchange)
     mvp8: (R, h//8, w//8, 2) int32 full-pel per-8x8-block MV predictors
     lam:  f32 sqrt-domain lambda for the MV-bits term

@@ -1,4 +1,4 @@
-"""Frame-level fused inter mode decision (the TPU P/B encode path).
+"""Frame-level fused inter mode decision (the accelerator P/B encode path).
 
 HM's inter search is a per-CU recursion: merge SATD ranking, per-ref AMVP
 motion estimation with fractional refinement, partition trials and RQT
@@ -12,7 +12,7 @@ program per frame, mirroring what intra_rd._plan_device does for I frames:
 
   stage 1: dense +-64 integer ME for every aligned block of sizes
            8/16/32/64 x every reference (coarse 4x-downsampled SSD
-           pyramid + full-res refinement) — all MXU/VPU tensor ops
+           pyramid + full-res refinement) — all dense tensor ops
   stage 2: 16-phase quarter-pel interpolated planes per reference
            (separable 8-tap, bit-exact with ops.interp_ref.mc_block's
            rounded output), then half+quarter diamond SATD refinement
@@ -1163,7 +1163,8 @@ def _device_ref(plane, h, w, device):
     ent = _REF_CACHE.get(key)
     if ent is not None:
         ref_w, arr = ent
-        if ref_w() is plane and arr.shape == (h, w):
+        if ref_w() is plane and arr.shape == (h, w) \
+                and device in arr.devices():
             _REF_CACHE[key] = _REF_CACHE.pop(key)   # LRU bump
             return arr
         del _REF_CACHE[key]
@@ -1178,6 +1179,21 @@ def _device_ref(plane, h, w, device):
     while len(_REF_CACHE) > 24:
         _REF_CACHE.pop(next(iter(_REF_CACHE)))
     return arr
+
+
+def zero_inputs(h, w, bd, is_b, qp=32):
+    """(args, kwargs) of `_plan_device` for an all-zero frame at one
+    geometry, as plan_frame passes them (in-program ME): for lowering or
+    compiling the program without an encode."""
+    r = MAXREF_PLAN
+    z = jnp.zeros((r,), jnp.int32)
+    args = (jnp.zeros((h, w), jnp.int32), jnp.zeros((r, h, w), jnp.int32),
+            jnp.zeros((h // 8, w // 8, 2), jnp.int32),
+            jnp.ones((r,), jnp.int32), jnp.float32(50.0), jnp.float32(7.0),
+            jnp.int32(qp + 6 * (bd - 8)), z, z, jnp.int32(1),
+            jnp.int32(1 if is_b else 0), None)
+    return args, dict(h=h, w=w, bd=bd, is_b=is_b, nmerge=5, parts=True,
+                      has_me=False)
 
 
 def plan_frame(orig_y, sps, sh, rc, prev_mv8, lam, lam_sqrt, device,
@@ -1213,7 +1229,7 @@ def plan_frame(orig_y, sps, sh, rc, prev_mv8, lam, lam_sqrt, device,
     # Pad the unique-ref stack to a fixed R and the list maps to a fixed
     # MAXREF so every GOP hierarchy level / DPB fill state hits the SAME
     # compiled program (one per slice kind) — ref-shape respecialization
-    # used to recompile on the first B of each level (20-40s each on TPU).
+    # used to recompile on the first B of each level.
     R_PAD = max(len(uniq), MAXREF_PLAN)
     pad_plane = uniq[0][1]
     planes_u = [p for _, p in uniq] + \

@@ -14,7 +14,7 @@ quadrant (w/x/y/z), this implementation samples the dense per-4x4-part
 depth planes at 8x8-CU granularity over the equivalent pixel rectangles —
 the depth history of the current picture, the colocated reference ("father")
 and the colocated reference's own colocated reference ("grandfather").
-The masks it produces shrink the CU-depth candidate set; on the TPU batch
+The masks it produces shrink the CU-depth candidate set; on the accelerator batch
 path that is a batch-size reduction, here it prunes the quadtree recursion.
 Normatively transparent: the bitstream stays standard HEVC.
 """

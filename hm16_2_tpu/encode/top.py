@@ -449,7 +449,7 @@ class Encoder:
 
         All-intra with fixed QP runs PIPELINED: frame N+1's plan program
         is dispatched to the accelerator before the host starts frame N's
-        commit/CABAC, hiding the device time entirely (the TPU dual of
+        commit/CABAC, hiding the device time entirely (the accelerator dual of
         TAppEncTop's read-encode loop, TAppEncTop.cpp:449-482)."""
         if self.field_coding:
             # split every frame into top/bottom fields, each coded as its
@@ -1155,7 +1155,7 @@ class Encoder:
         search = CtuSearch(pic, sh, planes, rdo=cfg.rdo, qp_factor=qp_factor,
                            sbd=cfg.sbd, rrsp=cfg.rrsp, lam_override=rc_lam,
                            der=cfg.der, rdoq=cfg.rdoq, lam_mult=lam_mult)
-        # frame-level batched intra decision (stage 1+2 of the TPU
+        # frame-level batched intra decision (stage 1+2 of the accelerator
         # pipeline); HM16_EXACT_RD=1 falls back to the sequential
         # context-exact trial-encode search
         import os
@@ -2868,7 +2868,7 @@ class CtuSearch:
     # candidates are re-ranked against the true reconstructed references
     # and the true MPM signalling cost before the winner is committed
     # (the estIntraPredQT full-RD stage of HM, TEncSearch.cpp:2289, with
-    # the candidate list supplied by the TPU plan)
+    # the candidate list supplied by the accelerator plan)
     # ------------------------------------------------------------------
 
     @staticmethod
@@ -3937,7 +3937,7 @@ class CtuSearch:
 
     def _premodes(self, log2):
         """Frame-level batched 35-mode SATD analysis for all aligned blocks
-        of one size, using original-pixel references (TPU batch path: the
+        of one size, using original-pixel references (accelerator batch path: the
         whole frame's blocks go through the jitted predict+SATD kernel at
         once instead of one 35-mode sweep per CU)."""
         cache = getattr(self, "_premode_cache", None)

@@ -1,6 +1,6 @@
 """Parameter-set and slice-header state (H.265 7.3.2, 7.3.6).
 
-TPU-native analogue of HM `TComSlice.h:429-1544` (TComVPS/SPS/PPS/RPS/
+Accelerator-native analogue of HM `TComSlice.h:429-1544` (TComVPS/SPS/PPS/RPS/
 ScalingList/slice state) as plain dataclasses: the codec engines treat these
 as static (trace-time) configuration; per-sample state lives in arrays.
 """

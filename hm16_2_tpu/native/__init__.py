@@ -1,24 +1,82 @@
 """Native (C++) hot-loop components.
 
-cabac_core.so implements the CABAC residual-coding inner loops (the
-dominant share of entropy bins).  Built on first import with g++ -O3;
-falls back to the pure-Python path when unavailable or when
-HM16_NO_NATIVE=1 is set.
+cabac_core implements the CABAC residual-coding inner loops (the
+dominant share of entropy bins); dsp_core is the plan-commit engine,
+inter CU commit, SAO and deblocking kernels.  Each library is built with
+g++ on first use into `_build/` (gitignored), under a name that hashes
+its source, the compiler flags and the host's /proc/cpuinfo `flags` line,
+so a library built from other sources or on another host (with
+-march=native it may use instructions this CPU lacks) is never loaded.
+A failed build raises with the compiler's output.  HM16_NO_NATIVE=1
+selects the pure-Python path.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import subprocess
+import tempfile
 
 import numpy as np
 
 _DIR = os.path.dirname(__file__)
+BUILD_DIR = os.path.join(_DIR, "_build")
+CXXFLAGS = ("-O3", "-march=native", "-ffp-contract=off", "-funroll-loops",
+            "-shared", "-fPIC")
 _SRC = os.path.join(_DIR, "cabac_core.cpp")
-_SO = os.path.join(_DIR, "cabac_core.so")
 
 _lib = None
+
+
+def host_cpu_flags() -> str:
+    """The /proc/cpuinfo `flags` line ('' where the file has none)."""
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if line.startswith("flags"):
+                    return line.strip()
+    except OSError:
+        pass
+    return ""
+
+
+def lib_path(src: str, flags=CXXFLAGS, cpu_flags: str | None = None) -> str:
+    """Where the library built from `src` with `flags` on this host lives."""
+    h = hashlib.sha256()
+    with open(src, "rb") as f:
+        h.update(f.read())
+    h.update("\0".join(flags).encode())
+    h.update(b"\0")
+    h.update((host_cpu_flags() if cpu_flags is None else cpu_flags).encode())
+    stem = os.path.splitext(os.path.basename(src))[0]
+    return os.path.join(BUILD_DIR, f"{stem}-{h.hexdigest()[:16]}.so")
+
+
+def build(src: str, flags=CXXFLAGS) -> str:
+    """Build `src` unless this host already has it; returns the .so path.
+
+    The compiler writes a temporary file that is renamed into place, so
+    concurrent processes never load a half-written library."""
+    so = lib_path(src, flags)
+    if os.path.exists(so):
+        return so
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        r = subprocess.run(["g++", *flags, "-o", tmp, src],
+                           capture_output=True, text=True)
+        if r.returncode != 0:
+            raise RuntimeError(
+                f"building {os.path.basename(src)} failed "
+                f"(g++ exit {r.returncode}):\n{r.stderr}")
+        os.replace(tmp, so)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return so
 
 
 class DecState(ctypes.Structure):
@@ -204,26 +262,13 @@ class ResParams(ctypes.Structure):
         "ctx_abs", "ctx_set_start", "off_x", "off_y", "shift_x", "shift_y")]
 
 
-def _build():
-    subprocess.run(
-        ["g++", "-O3", "-march=native", "-ffp-contract=off", "-funroll-loops", "-shared",
-         "-fPIC", "-o", _SO, _SRC],
-        check=True, capture_output=True)
-
-
 def get_lib():
     global _lib
     if _lib is not None:
         return _lib
     if os.environ.get("HM16_NO_NATIVE"):
         return None
-    try:
-        if (not os.path.exists(_SO) or
-                os.path.getmtime(_SO) < os.path.getmtime(_SRC)):
-            _build()
-        lib = ctypes.CDLL(_SO)
-    except Exception:
-        return None
+    lib = ctypes.CDLL(build(_SRC))
     lib.set_tables.argtypes = [ctypes.c_void_p] * 4
     lib.decode_residual.argtypes = [
         ctypes.POINTER(DecState), ctypes.c_void_p, ctypes.POINTER(ResParams),
@@ -257,30 +302,18 @@ def get_lib():
 
 
 _SRC_DSP = os.path.join(_DIR, "dsp_core.cpp")
-_SO_DSP = os.path.join(_DIR, "dsp_core.so")
 _dsp = None
-_dsp_failed = False
 
 
 def get_dsp():
-    """ctypes handle to the fused TU-coding DSP core (or None)."""
-    global _dsp, _dsp_failed
-    if _dsp is not None or _dsp_failed:
+    """ctypes handle to the fused TU-coding DSP core (None only under
+    HM16_NO_NATIVE=1)."""
+    global _dsp
+    if _dsp is not None:
         return _dsp
     if os.environ.get("HM16_NO_NATIVE"):
-        _dsp_failed = True
         return None
-    try:
-        if (not os.path.exists(_SO_DSP) or
-                os.path.getmtime(_SO_DSP) < os.path.getmtime(_SRC_DSP)):
-            subprocess.run(
-                ["g++", "-O3", "-march=native", "-ffp-contract=off", "-funroll-loops", "-shared",
-                 "-fPIC", "-o", _SO_DSP, _SRC_DSP],
-                check=True, capture_output=True)
-        lib = ctypes.CDLL(_SO_DSP)
-    except Exception:
-        _dsp_failed = True
-        return None
+    lib = ctypes.CDLL(build(_SRC_DSP))
     lib.set_dsp_tables.argtypes = [ctypes.c_void_p] * 7
     lib.code_tu.argtypes = [
         ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,

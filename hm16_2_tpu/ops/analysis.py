@@ -1,11 +1,11 @@
-"""Batched TPU analysis kernels (JAX): the encoder's hot path.
+"""Batched accelerator analysis kernels (JAX): the encoder's hot path.
 
 HM evaluates intra modes sequentially per PU (TEncSearch.cpp:2289-2697); here
 all 35 modes x N blocks are evaluated at once:
 
   - mode prediction = one gather with static per-mode index/weight tables
     (angular two-tap interpolation, planar bilinear, DC) — no control flow
-  - SATD = Hadamard via matmuls (MXU) over (N, 35, s, s) difference tensors
+  - SATD = Hadamard via integer matmuls over (N, 35, s, s) difference tensors
   - forward DCT + quantization = integer matmuls + shifts
 
 The per-mode tables bake in: filtered-vs-unfiltered reference selection,
@@ -230,7 +230,7 @@ def _hadamard(n):
 
 @partial(jax.jit, static_argnames=("tile",))
 def batched_satd(diffs, tile: int = 8):
-    """SATD over (..., bh, bw) int32 via Hadamard matmuls (MXU path).
+    """SATD over (..., bh, bw) int32 via Hadamard matmuls.
     Rectangular blocks (inter PU shapes) tile the same way HM's RdCost
     walks rect PUs in 8x8 Hadamard tiles (TComRdCost.cpp:2345)."""
     bh, bw = diffs.shape[-2], diffs.shape[-1]

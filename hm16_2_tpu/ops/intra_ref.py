@@ -1,9 +1,10 @@
 """Reference-exact intra prediction (spec 8.4.4.2; HM TComPattern.cpp:107-530,
 TComPrediction.cpp:120-440,746-835).
 
-Operates on numpy int arrays.  The batched TPU path in hm16_2_tpu.ops.intra
+Operates on numpy int arrays.  The accelerator path (hm16_2_tpu.ops.analysis)
 reuses the same per-mode math on dense candidate tensors; this module is the
-scalar oracle and the decoder's recon path.
+oracle (the filter and the predictors also take leading batch axes) and the
+decoder's recon path.
 
 Reference line layout: ref[0] = top-left, ref[1..2W] = top row (left->right),
 left column stored separately as left[1..2H] (top->bottom).
@@ -130,31 +131,38 @@ def fill_reference_samples(rec: np.ndarray, x0: int, y0: int, tu_size: int,
 def filter_reference_samples(top: np.ndarray, left: np.ndarray, tu_size: int,
                              bit_depth: int, strong_enabled: bool):
     """[1 2 1] smoothing, or strong bilinear interpolation for 32x32
-    (TComPattern.cpp:344-460)."""
+    (TComPattern.cpp:344-460).  top/left may carry leading batch axes."""
     s = tu_size
     top_f = top.copy()
     left_f = left.copy()
-    bottom_left = int(left[2 * s])
-    top_left = int(top[0])
-    top_right = int(top[2 * s])
-    strong = False
+    bottom_left = left[..., 2 * s]
+    top_left = top[..., 0]
+    top_right = top[..., 2 * s]
+    left_f[..., 1:2 * s] = (left[..., 2:] + 2 * left[..., 1:2 * s]
+                            + left[..., :2 * s - 1] + 2) >> 2
+    top_f[..., 1:2 * s] = (top[..., 2:] + 2 * top[..., 1:2 * s]
+                           + top[..., :2 * s - 1] + 2) >> 2
+    corner = (left[..., 1] + 2 * top[..., 0] + top[..., 1] + 2) >> 2
+    top_f[..., 0] = corner
+    left_f[..., 0] = corner
     if strong_enabled and s == 32:
         threshold = 1 << (bit_depth - 5)
-        bilinear_left = abs((bottom_left + top_left) - 2 * int(left[s])) < threshold
-        bilinear_above = abs((top_left + top_right) - 2 * int(top[s])) < threshold
-        strong = bilinear_left and bilinear_above
-    if strong:
+        strong = ((np.abs(bottom_left + top_left - 2 * left[..., s])
+                   < threshold)
+                  & (np.abs(top_left + top_right - 2 * top[..., s])
+                     < threshold))
         shift = (s.bit_length() - 1) + 1   # log2(2s)
         i = np.arange(1, 2 * s)
-        left_f[1:2 * s] = ((2 * s - i) * top_left + i * bottom_left + s) >> shift
-        top_f[1:2 * s] = ((2 * s - i) * top_left + i * top_right + s) >> shift
-        # ends unfiltered; top-left stays
-    else:
-        left_f[1:2 * s] = (left[2:] + 2 * left[1:2 * s] + left[:2 * s - 1] + 2) >> 2
-        top_f[1:2 * s] = (top[2:] + 2 * top[1:2 * s] + top[:2 * s - 1] + 2) >> 2
-        corner = (left[1] + 2 * top[0] + top[1] + 2) >> 2
-        top_f[0] = corner
-        left_f[0] = corner
+        tl = top_left[..., None]
+        sl = ((2 * s - i) * tl + i * bottom_left[..., None] + s) >> shift
+        st = ((2 * s - i) * tl + i * top_right[..., None] + s) >> shift
+        # bilinear inside; both ends and the top-left stay unfiltered
+        left_f[..., 1:2 * s] = np.where(strong[..., None], sl,
+                                        left_f[..., 1:2 * s])
+        top_f[..., 1:2 * s] = np.where(strong[..., None], st,
+                                       top_f[..., 1:2 * s])
+        top_f[..., 0] = np.where(strong, top[..., 0], top_f[..., 0])
+        left_f[..., 0] = np.where(strong, left[..., 0], left_f[..., 0])
     return top_f, left_f
 
 
@@ -176,7 +184,8 @@ def should_filter(mode: int, tu_size: int, is_luma: bool,
 def predict_intra(mode: int, top: np.ndarray, left: np.ndarray, size: int,
                   bit_depth: int, is_luma: bool,
                   enable_edge_filters: bool = True) -> np.ndarray:
-    """Produce the (size, size) prediction block for one of the 35 modes."""
+    """Produce the (size, size) prediction block for one of the 35 modes.
+    top/left may carry leading batch axes; so does the result."""
     s = size
     if mode == PLANAR_IDX:
         return _pred_planar(top, left, s)
@@ -187,30 +196,33 @@ def predict_intra(mode: int, top: np.ndarray, left: np.ndarray, size: int,
 
 
 def _pred_planar(top, left, s):
-    t = top[1:s + 1].astype(np.int64)
-    l = left[1:s + 1].astype(np.int64)
-    bottom_left = int(left[s + 1]) if s + 1 <= 2 * s else int(left[s])
-    bottom_left = int(left[s + 1])
-    top_right = int(top[s + 1])
+    t = top[..., 1:s + 1].astype(np.int64)
+    l = left[..., 1:s + 1].astype(np.int64)
+    bottom_left = left[..., s + 1, None, None].astype(np.int64)
+    top_right = top[..., s + 1, None, None].astype(np.int64)
     shift = s.bit_length() - 1   # log2(s)
     x = np.arange(s, dtype=np.int64)
     y = np.arange(s, dtype=np.int64)
     xx, yy = np.meshgrid(x, y)
-    hor = (s - 1 - xx) * l[yy] + (xx + 1) * top_right
-    ver = (s - 1 - yy) * t[xx] + (yy + 1) * bottom_left
+    hor = (s - 1 - xx) * l[..., yy] + (xx + 1) * top_right
+    ver = (s - 1 - yy) * t[..., xx] + (yy + 1) * bottom_left
     return (hor + ver + s) >> (shift + 1)
 
 
 def _pred_dc(top, left, s, bit_depth, is_luma, edge_filters):
-    dcval = (int(top[1:s + 1].sum()) + int(left[1:s + 1].sum()) + s) >> \
+    t = top.astype(np.int64)
+    l = left.astype(np.int64)
+    dcval = (t[..., 1:s + 1].sum(-1) + l[..., 1:s + 1].sum(-1) + s) >> \
         ((s.bit_length() - 1) + 1)
-    pred = np.full((s, s), dcval, dtype=np.int64)
+    pred = np.broadcast_to(dcval[..., None, None],
+                           dcval.shape + (s, s)).copy()
     if is_luma and s <= 16:
         # DC filtering (xDCPredFiltering) — applied when above+left available;
         # after substitution both are treated available (HM passes true/true)
-        pred[0, 0] = (int(top[1]) + int(left[1]) + 2 * dcval + 2) >> 2
-        pred[0, 1:] = (top[2:s + 1] + 3 * dcval + 2) >> 2
-        pred[1:, 0] = (left[2:s + 1] + 3 * dcval + 2) >> 2
+        dc = dcval[..., None]
+        pred[..., 0, 0] = (t[..., 1] + l[..., 1] + 2 * dcval + 2) >> 2
+        pred[..., 0, 1:] = (t[..., 2:s + 1] + 3 * dc + 2) >> 2
+        pred[..., 1:, 0] = (l[..., 2:s + 1] + 3 * dc + 2) >> 2
     return pred
 
 
@@ -221,38 +233,34 @@ def _pred_angular(mode, top, left, s, bit_depth, is_luma, edge_filters):
     inv_angle = int(INV_ANG_TABLE[abs(ang_mode)])
     sign = -1 if ang_mode < 0 else 1
     angle = sign * abs_ang
+    batch = top.shape[:-1]
 
     # build refMain/refSide arrays indexed -s..2s
     n = 4 * s + 2
-    ref_main = np.zeros(n, dtype=np.int64)   # index offset s
+    ref_main = np.zeros(batch + (n,), dtype=np.int64)   # index offset s
     base = s
+    main_src = top if is_ver else left
+    side_src = left if is_ver else top
     if angle < 0:
         # main = above row (ver) or left col (hor), extended to the left
-        main_src = top if is_ver else left
-        side_src = left if is_ver else top
-        for x in range(s + 1):
-            ref_main[base + x] = main_src[x]
+        ref_main[..., base:base + s + 1] = main_src[..., :s + 1]
         inv_sum = 128
         k = -1
         while k > (s * angle) >> 5:
             inv_sum += inv_angle
-            ref_main[base + k] = side_src[inv_sum >> 8]
+            ref_main[..., base + k] = side_src[..., inv_sum >> 8]
             k -= 1
     else:
-        main_src = top if is_ver else left
-        for x in range(2 * s + 1):
-            ref_main[base + x] = main_src[x]
+        ref_main[..., base:base + 2 * s + 1] = main_src[..., :2 * s + 1]
 
-    pred = np.zeros((s, s), dtype=np.int64)
+    pred = np.zeros(batch + (s, s), dtype=np.int64)
     edge = edge_filters and is_luma and s <= 16
     if angle == 0:
-        row = ref_main[base + 1: base + 1 + s]
-        pred[:] = row[np.newaxis, :]
+        pred[...] = ref_main[..., None, base + 1: base + 1 + s]
         if edge:
-            side_src = left if is_ver else top
-            ref0 = int(side_src[0])
-            col = pred[:, 0] + ((side_src[1:s + 1] - ref0) >> 1)
-            pred[:, 0] = np.clip(col, 0, (1 << bit_depth) - 1)
+            ref0 = side_src[..., :1].astype(np.int64)
+            col = pred[..., 0] + ((side_src[..., 1:s + 1] - ref0) >> 1)
+            pred[..., 0] = np.clip(col, 0, (1 << bit_depth) - 1)
     else:
         for y in range(s):
             delta = (y + 1) * angle
@@ -260,11 +268,11 @@ def _pred_angular(mode, top, left, s, bit_depth, is_luma, edge_filters):
             frac = delta & 31
             idx = base + 1 + i_int + np.arange(s)
             if frac:
-                pred[y] = ((32 - frac) * ref_main[idx] + frac * ref_main[idx + 1]
-                           + 16) >> 5
+                pred[..., y, :] = ((32 - frac) * ref_main[..., idx]
+                                   + frac * ref_main[..., idx + 1] + 16) >> 5
             else:
-                pred[y] = ref_main[idx]
+                pred[..., y, :] = ref_main[..., idx]
     if not is_ver:
-        pred = pred.T.copy()
+        pred = np.swapaxes(pred, -1, -2).copy()
     # mode 2/34 do not have edge filtering in HEVC v1 (only 10/26 via angle==0)
     return pred

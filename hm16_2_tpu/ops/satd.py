@@ -1,7 +1,7 @@
 """SAD / Hadamard-SATD distortion kernels (TComRdCost.cpp:223-1606 analogue).
 
 Numpy reference; the batched JAX versions in hm16_2_tpu.ops.analysis evaluate
-all candidate modes at once on the MXU.
+all candidate modes at once on the accelerator.
 """
 
 from __future__ import annotations

@@ -29,12 +29,12 @@ def _clip(x, lo, hi):
 
 def inverse_transform(coeffs: np.ndarray, bit_depth: int, use_dst: bool,
                       max_tr_dynamic_range: int = 15) -> np.ndarray:
-    """2-D inverse transform of an (H, W) coefficient block -> residual.
+    """2-D inverse transform of (..., H, W) coefficient blocks -> residual.
 
     Stage 1 (vertical) result is clipped to the transform dynamic range,
     stage 2 (horizontal) to int16 (Pel protection), matching xITrMxN.
     """
-    h, w = coeffs.shape
+    h, w = coeffs.shape[-2:]
     c = coeffs.astype(np.int64)
     t_v = (DST4 if (use_dst and h == 4) else DCT[h])
     t_h = (DST4 if (use_dst and w == 4) else DCT[w])
@@ -48,8 +48,9 @@ def inverse_transform(coeffs: np.ndarray, bit_depth: int, use_dst: bool,
 
 def forward_transform(residual: np.ndarray, bit_depth: int, use_dst: bool,
                       max_tr_dynamic_range: int = 15) -> np.ndarray:
-    """2-D forward transform (HM xTrMxN :836): horizontal then vertical."""
-    h, w = residual.shape
+    """2-D forward transform of (..., H, W) residual blocks (HM xTrMxN
+    :836): horizontal then vertical."""
+    h, w = residual.shape[-2:]
     r = residual.astype(np.int64)
     t_v = (DST4 if (use_dst and h == 4) else DCT[h])
     t_h = (DST4 if (use_dst and w == 4) else DCT[w])

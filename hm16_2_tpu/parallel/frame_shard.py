@@ -4,7 +4,7 @@ Shards stage 1 of the batched intra RD pipeline (encode/intra_rd.py) across
 a `row` mesh axis: the luma plane is split into horizontal bands of block
 rows, each device evaluates its band's candidate CUs, and the one-row
 halo a band needs for its top reference samples arrives from the device
-above via `ppermute` over ICI — the intra top-row neighbour exchange
+above via `ppermute` — the intra top-row neighbour exchange
 listed in SURVEY.md section 5.  (Left/bottom reference extensions are
 original-pixel replications that stay band-local.)
 
@@ -25,7 +25,6 @@ ensure_cache()
 
 import jax
 import jax.numpy as jnp
-from jax.experimental.shard_map import shard_map
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from hm16_2_tpu.encode import intra_rd
@@ -127,13 +126,15 @@ def sharded_size_rd(mesh: Mesh, plane: np.ndarray, s: int, bd: int, k: int,
     key = (_mesh_key(mesh), H, W, s, bd, k, qp, float(lam), strong, pic_h)
     step = _STEP_CACHE.get(key)
     if step is None:
-        @partial(shard_map, mesh=mesh,
+        # jitted: an eager shard_map dispatches (and compiles) op by op
+        @jax.jit
+        @partial(jax.shard_map, mesh=mesh,
                  in_specs=(P("row", None),),
                  out_specs=(P("row", None), P("row", None), P("row", None),
                             P("row", None)),
-                 check_rep=False)
+                 check_vma=False)
         def step(band):
-            # halos over ICI: last row of the band above moves down one
+            # halos: last row of the band above moves down one
             # device, the first s rows of the band below move up one
             halo_top = jax.lax.ppermute(
                 band[-1:, :], "row", [(i, i + 1) for i in range(n_dev - 1)])

@@ -1,7 +1,7 @@
 """Row-sharded inter motion estimation over a device mesh.
 
 The current frame's rows are banded across the `row` mesh axis; each
-device all-gathers the reference planes over ICI (SURVEY.md §5's
+device all-gathers the reference planes (SURVEY.md §5's
 reference-picture-window exchange) and runs the SAME dense ME program
 (encode/inter_me.me_frame) on its band.  Every distortion in me_frame is
 an exact integer sum, so the concatenated band grids are bit-identical
@@ -21,7 +21,6 @@ ensure_cache()
 
 import jax
 import jax.numpy as jnp
-from jax.experimental.shard_map import shard_map
 from jax.sharding import PartitionSpec as P
 
 from hm16_2_tpu.encode import inter_me
@@ -39,7 +38,7 @@ _STEP_CACHE: dict = {}
 
 def sharded_me_frame(mesh, cur, refs, mvp8, lam, h: int, w: int):
     """me_frame with the current frame row-banded over `mesh` and the
-    references all-gathered inside the shard (ICI collective)."""
+    references all-gathered inside the shard."""
     n_dev = mesh.devices.size
     band = h // n_dev
 
@@ -55,13 +54,14 @@ def sharded_me_frame(mesh, cur, refs, mvp8, lam, h: int, w: int):
                            h=band, w=w, full_h=h)
             return tuple(out[s] for s in _SIZES)
 
-        fn = shard_map(
+        # jitted: an eager shard_map dispatches (and compiles) op by op
+        fn = jax.jit(jax.shard_map(
             step, mesh=mesh,
             in_specs=(P("row", None), P(None, "row", None),
                       P(None, "row", None, None), P()),
             out_specs=tuple((P(None, "row", None), P(None, "row"))
                             for _ in _SIZES),
-            check_rep=False)
+            check_vma=False))
         _STEP_CACHE[key] = fn
     outs = fn(cur, refs, mvp8, lam)
     return {s: outs[i] for i, s in enumerate(_SIZES)}

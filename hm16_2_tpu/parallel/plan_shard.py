@@ -29,12 +29,14 @@ ensure_cache()
 
 import jax
 import jax.numpy as jnp
-from jax.experimental.shard_map import shard_map
 from jax.sharding import NamedSharding, PartitionSpec as P
 
 from hm16_2_tpu.encode import inter_plan
 
 _STEP_CACHE: dict = {}
+# the grids the fused plan takes as `me`: square sizes, (size, part) rects
+_SQ = (8, 16, 32, 64)
+_RECT = ((16, 1), (16, 2), (32, 1), (32, 2), (64, 1), (64, 2))
 
 
 def _mesh_key(mesh):
@@ -75,16 +77,16 @@ def sharded_int_me(mesh, cur, refs, mvn16, dists, lam_sqrt, h: int,
             ).astype(jnp.int32), -mv_cap, mv_cap)
             sq, rect = inter_plan._int_me_grids(
                 cur_b, refs_full, mvp_full, lams_, band, w, True, y0=y0)
-            return (sq[8], sq[16], sq[32], sq[64],
-                    rect[(16, 1)], rect[(16, 2)], rect[(32, 1)],
-                    rect[(32, 2)], rect[(64, 1)], rect[(64, 2)])
+            return (tuple(sq[k] for k in _SQ)
+                    + tuple(rect[k] for k in _RECT))
 
         gspec = P(None, "row", None, None)
-        step = jax.jit(shard_map(
+        step = jax.jit(jax.shard_map(
             band_me, mesh=mesh,
             in_specs=(P("row", None), P(None, "row", None),
                       P("row", None, None), P(None), P()),
-            out_specs=(gspec,) * 10, check_rep=False))
+            out_specs=(gspec,) * (len(_SQ) + len(_RECT)),
+            check_vma=False))
         _STEP_CACHE[key] = step
 
     args = (
@@ -98,7 +100,19 @@ def sharded_int_me(mesh, cur, refs, mvn16, dists, lam_sqrt, h: int,
         jnp.float32(lam_sqrt),
     )
     out = [np.asarray(o) for o in step(*args)]
-    sq = {8: out[0], 16: out[1], 32: out[2], 64: out[3]}
-    rect = {(16, 1): out[4], (16, 2): out[5], (32, 1): out[6],
-            (32, 2): out[7], (64, 1): out[8], (64, 2): out[9]}
-    return sq, rect
+    return dict(zip(_SQ, out)), dict(zip(_RECT, out[len(_SQ):]))
+
+
+def me_zeros(h: int, w: int, r: int):
+    """All-zero grids shaped as sharded_int_me returns them for an (h, w)
+    frame with r references: the `me` input for compiling the fused plan
+    that consumes banded ME without running it."""
+    i32 = jnp.int32
+    sq, rect = jax.eval_shape(
+        lambda c, rf, mv: inter_plan._int_me_grids(
+            c, rf, mv, jnp.float32(0), h, w, True),
+        jax.ShapeDtypeStruct((h, w), i32),
+        jax.ShapeDtypeStruct((r, h, w), i32),
+        jax.ShapeDtypeStruct((r, h // 8, w // 8, 2), i32))
+    return ({k: np.zeros(sq[k].shape, sq[k].dtype) for k in _SQ},
+            {k: np.zeros(rect[k].shape, rect[k].dtype) for k in _RECT})

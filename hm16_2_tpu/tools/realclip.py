@@ -3,11 +3,13 @@
 The BD-rate harness historically ran on procedural noise+sinusoid frames,
 whose skip/bi statistics do not match camera content.  This module
 synthesises video with *real camera statistics* by panning/zooming a
-window over an actual photograph (matplotlib's bundled Grace Hopper
-portrait - natural textures, skin, fabric, specular highlights, sharp
-edges) with smooth sub-pixel global motion plus a slow zoom, which is
-exactly the motion model of a camera dolly/pan shot.  Luma/chroma are
-BT.601 full->limited range, 4:2:0 co-sited averaging.
+window over an actual photograph (the US Navy's public-domain portrait of
+Grace Hopper, as matplotlib ships it - natural textures, skin, fabric,
+specular highlights, sharp edges) with smooth sub-pixel global motion
+plus a slow zoom, which is exactly the motion model of a camera
+dolly/pan shot.  Luma/chroma are BT.601 full->limited range, 4:2:0
+co-sited averaging.  The photograph's decoded 8-bit RGB is stored beside
+this module (grace_hopper_rgb.npz), so numpy and scipy are all it needs.
 
 Mirrors the role of HM's per-sequence camera clips
 (cfg/per-sequence/BasketballDrill.cfg etc.) as far as is possible with
@@ -18,8 +20,8 @@ import os
 
 import numpy as np
 
-_PHOTO = os.path.join(os.path.dirname(os.path.abspath(__import__(
-    "matplotlib").__file__)), "mpl-data", "sample_data", "grace_hopper.jpg")
+_PHOTO = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                      "grace_hopper_rgb.npz")
 
 _cache = {}
 
@@ -28,9 +30,8 @@ def _photo_ycbcr():
     """Load the source photograph as float BT.601 YCbCr (limited range)."""
     if "photo" in _cache:
         return _cache["photo"]
-    from PIL import Image
-    im = Image.open(_PHOTO).convert("RGB")
-    rgb = np.asarray(im, np.float64) / 255.0
+    with np.load(_PHOTO) as z:
+        rgb = z["rgb"].astype(np.float64) / 255.0
     r, g, b = rgb[..., 0], rgb[..., 1], rgb[..., 2]
     y = 16 + 219 * (0.299 * r + 0.587 * g + 0.114 * b)
     cb = 128 + 224 * (-0.168736 * r - 0.331264 * g + 0.5 * b)

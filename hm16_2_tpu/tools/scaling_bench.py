@@ -1,11 +1,11 @@
-"""Multi-device scaling measurement (stand-in curve on the virtual CPU
-mesh; SURVEY.md §5 / BASELINE scaling target).
+"""Multi-device scaling measurement over the default backend's devices
+(SURVEY.md §5 / BASELINE scaling target).
 
 Times the two sharded device stages — the row-sharded intra frame plan
 (ppermute top-halo exchange) and the row-banded inter ME (reference
 all_gather) — at 1/2/4/8 mesh devices and prints one JSON line per
-stage.  On real multi-chip hardware the same code path scales over ICI;
-on this box the mesh is XLA's host-platform device partition
+stage.  On a multi-GPU host the same code path runs across the cards;
+on a CPU-only box the mesh is XLA's host-platform device partition
 (run with XLA_FLAGS=--xla_force_host_platform_device_count=8), so the
 numbers are a plumbing/overhead curve, not a physical-chip speedup.
 
@@ -37,10 +37,7 @@ def main(argv=None):
         make_row_mesh, sharded_plan_frame)
     from hm16_2_tpu.parallel.me_shard import sharded_me_frame
 
-    try:
-        devices = jax.devices("cpu")
-    except RuntimeError:
-        devices = jax.devices()
+    devices = jax.devices()
 
     cfg = EncoderConfig(w, h, qp=32, intra_period=1)
     sps, _ = build_sps_pps(cfg)
@@ -80,6 +77,9 @@ def main(argv=None):
         base = results.get(1)
         print(json.dumps({
             "stage": stage, "size": a.size, "ms_per_frame": results,
+            "platform": devices[0].platform,
+            "device_kind": devices[0].device_kind,
+            "device_count": len(devices),
             "efficiency_vs_1dev": {
                 str(n): round(base / (results[n] * n), 3)
                 for n in results if base},
